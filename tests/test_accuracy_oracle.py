@@ -2,14 +2,13 @@
 
 No Vulkan ground truth can exist on this machine, so the strongest
 available absolute anchor is exact-arithmetic evaluation of the IDENTICAL
-estimator: the f32 production pipeline (Pallas cluster kernels in
-interpret mode + the packed shade kernel) against a float64 brute-force
-oracle, equal seeds, equal spp, equal bounce schedule. The RNG emits
+estimator: the f32 pipeline the GPU runs (the per-ray traversal kernel, in
+interpret mode here, + the XLA shading stage) against a float64
+brute-force oracle, equal seeds, equal spp, equal bounce schedule. The RNG emits
 identical f32 draws on both paths (ops/rng.py keeps uint32 state and a
 fixed 2^-24 quantization), so the two renders follow the SAME random walk
 and the residual is purely accumulated floating-point drift + traversal
-tie-breaks — the quantity the <=1e-3 budget is meant to bound
-(VERDICT round-2 weak 7).
+tie-breaks — the quantity the <=1e-3 budget is meant to bound.
 """
 
 from functools import partial
@@ -24,8 +23,8 @@ DEPTH = 3
 
 
 def _render(scene, tracer, dtype):
-    from vkrt_tpu.models.pathtracer import pathtrace_frame
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.models.pathtracer import pathtrace_frame
+    from vkrt.utils.camera import Camera
 
     cam = Camera().matrices(W, H)
     cam = jax.tree.map(lambda a: jnp.asarray(a, dtype), cam)
@@ -41,15 +40,15 @@ def _render(scene, tracer, dtype):
 
 
 def test_f32_pallas_vs_f64_bruteforce_oracle():
-    from vkrt_tpu.ops.pallas.trace import make_pallas_tracer
-    from vkrt_tpu.ops.trace import make_tracer
-    from vkrt_tpu.scene import make_cornell_box
+    from vkrt.ops.trace import build_tracer, make_tracer
+    from vkrt.scene import make_cornell_box
 
     scene = make_cornell_box()
 
-    # production f32: the real cluster kernel (interpret) + packed shade
-    img32 = _render(scene, make_pallas_tracer(scene, interpret=True),
-                    jnp.float32)
+    # the GPU path in f32: the traversal kernel (interpret) + XLA shading
+    kernel = build_tracer(scene.tri_v0, scene.tri_e1, scene.tri_e2,
+                          "kernel", interpret=True)
+    img32 = _render(scene, kernel, jnp.float32)
 
     with jax.enable_x64():
         scene64 = jax.tree.map(
@@ -67,7 +66,7 @@ def test_f32_pallas_vs_f64_bruteforce_oracle():
     # (rgen:101) — which the display transform clips, exactly as the
     # reference's post pass does. RMSE on [0,1] display values is the
     # BASELINE.md metric's actual domain.
-    from vkrt_tpu.models.post import tonemap
+    from vkrt.models.post import tonemap
 
     disp32 = np.clip(np.asarray(tonemap(jnp.asarray(img32)), np.float64), 0, 1)
     disp64 = np.clip(np.asarray(tonemap(jnp.asarray(img64)), np.float64), 0, 1)
@@ -78,8 +77,7 @@ def test_f32_pallas_vs_f64_bruteforce_oracle():
     # coplanar-hit tie-break) sends that pixel's entire random walk down a
     # different path — the error there is O(1) no matter how accurate the
     # arithmetic, so it measures decision-boundary density, not numerical
-    # quality. Measured on this config: median 3.7e-9, p99 1.1e-6, 16/3072
-    # pixels diverged. Bound both populations separately.
+    # quality. Bound both populations separately.
     err = np.abs(disp32 - disp64).max(-1)
     assert np.percentile(err, 99) <= 1e-3, np.percentile(err, 99)
     diverged = err > 1e-2

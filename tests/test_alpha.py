@@ -1,7 +1,7 @@
 """Alpha-tested transparency (the reference's unwired any-hit shaders).
 
-Covers the TPU-native stochastic punch-through re-trace of ops/alpha.py
-against the semantics of /root/reference/raytrace_rahit_todo.glsl:32-38:
+Covers the stochastic punch-through re-trace of ops/alpha.py against the
+semantics of the reference's raytrace_rahit_todo.glsl:32-38:
 transparent materials are skipped with probability 1 - opacity, dissolve==0
 always punches through.
 """
@@ -9,15 +9,15 @@ always punches through.
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.ops.alpha import (
+from vkrt.ops.alpha import (
     alpha_closest,
     make_alpha_tracer,
     opacity_at_hit,
     scene_has_alpha,
 )
-from vkrt_tpu.ops.trace import make_tracer
-from vkrt_tpu.scene import scene_from_soup
-from vkrt_tpu.utils import gltf as gltf_mod
+from vkrt.ops.trace import make_tracer
+from vkrt.scene import scene_from_soup
+from vkrt.utils import gltf as gltf_mod
 
 
 def _two_quads(front_mat: gltf_mod.GltfMaterial):
@@ -173,8 +173,8 @@ def test_stochastic_punch_rate():
 
 def test_shadow_through_cutout():
     """A MASK cutout quad between light and floor: shadow rays punch the
-    transparent half deterministically — the leaf-texture case of VERDICT
-    item 7, via an alpha texture sampled at the hit UV."""
+    transparent half deterministically — the leaf-texture case, via an
+    alpha texture sampled at the hit UV."""
     # texture: left half alpha=0, right half alpha=1
     img = np.full((8, 8, 4), 255, np.uint8)
     img[:, :4, 3] = 0
@@ -212,8 +212,8 @@ def test_shadow_through_cutout():
 def test_pathtrace_frame_runs_with_alpha():
     """End-to-end: pathtrace_frame over a scene with a transparent quad
     produces finite radiance (the punch-through loop jits inside the frame)."""
-    from vkrt_tpu.models.pathtracer import pathtrace_frame
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.models.pathtracer import pathtrace_frame
+    from vkrt.utils.camera import Camera
 
     front = gltf_mod.GltfMaterial(
         np.array([1, 1, 1, 0.5], np.float32), metallic_factor=0.0, alpha_mode=2,

@@ -4,7 +4,7 @@ profiling stats."""
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.ops import nrd
+from vkrt.ops import nrd
 
 
 def test_oct_encode_roundtrip(rng):
@@ -52,7 +52,7 @@ def test_pack_normal_roughness_fields(rng):
 
 
 def test_atrous_preserves_constant_image():
-    from vkrt_tpu.models.denoiser import atrous_filter
+    from vkrt.models.denoiser import atrous_filter
 
     w, h = 16, 12
     img = jnp.full((w * h, 3), 2.5)
@@ -64,7 +64,7 @@ def test_atrous_preserves_constant_image():
 
 def test_atrous_respects_normal_edges():
     """Blur must not leak across a hard normal discontinuity."""
-    from vkrt_tpu.models.denoiser import atrous_filter
+    from vkrt.models.denoiser import atrous_filter
 
     w, h = 32, 8
     img = np.zeros((h, w, 3), np.float32)
@@ -87,9 +87,9 @@ def test_atrous_respects_normal_edges():
 
 
 def test_checkpoint_roundtrip(tmp_path, procedural_cornell):
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils import checkpoint
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils import checkpoint
 
     path = str(tmp_path / "state.npz")
     e = Engine(procedural_cornell, 32, 24, RenderSettings(rt_mode=1))
@@ -112,9 +112,9 @@ def test_checkpoint_roundtrips_denoiser_state(tmp_path, procedural_cornell):
     reprojection buffers + moments ARE convergence state (dropping them
     restarts the filter from hist_len 0). The resumed engine must continue
     bit-identically to the uninterrupted one."""
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils import checkpoint
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils import checkpoint
 
     settings = RenderSettings(rt_mode=0, use_shadows=True, use_ao=True,
                               use_gi=True, use_denoiser=True)
@@ -135,9 +135,9 @@ def test_checkpoint_roundtrips_denoiser_state(tmp_path, procedural_cornell):
 
 
 def test_checkpoint_rejects_mismatched_fingerprint(tmp_path, procedural_cornell):
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils import checkpoint
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils import checkpoint
 
     path = str(tmp_path / "state.npz")
     e = Engine(procedural_cornell, 32, 24, RenderSettings(rt_mode=1))
@@ -148,7 +148,7 @@ def test_checkpoint_rejects_mismatched_fingerprint(tmp_path, procedural_cornell)
 
 
 def test_frame_stats():
-    from vkrt_tpu.utils.profiling import FrameStats
+    from vkrt.utils.profiling import FrameStats
 
     s = FrameStats()
     s.record(0.01, 1e6)

@@ -4,8 +4,8 @@ white-furnace check for the diffuse lobe, and directLight parity details."""
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.ops import brdf
-from vkrt_tpu.ops.sampling import M_INV_PI
+from vkrt.ops import brdf
+from vkrt.ops.sampling import M_INV_PI
 
 
 def _n(v):

@@ -5,14 +5,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vkrt_tpu.bvh.lbvh import FlatBVH, build_lbvh, morton3d, _clz32
-from vkrt_tpu.ops.trace import (
+from vkrt.bvh.lbvh import FlatBVH, build_lbvh, morton3d, _clz32
+from vkrt.ops.trace import (
     trace_any_bruteforce,
     trace_any_bvh,
     trace_closest_bruteforce,
     trace_closest_bvh,
 )
-from vkrt_tpu.scene import make_cornell_box, make_random_soup
+from vkrt.scene import make_cornell_box, make_random_soup
 
 
 def _soup(n, seed=0):
@@ -132,8 +132,8 @@ def test_duplicate_centroids_build():
 
 
 def test_cornell_render_with_bvh_matches_bruteforce():
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
 
     box = make_cornell_box()
     a = Engine(box, 48, 36, RenderSettings(rt_mode=1, backend="bruteforce")).render(2)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.utils.camera import Camera, generate_rays, look_at, perspective_vk
+from vkrt.utils.camera import Camera, generate_rays, look_at, perspective_vk
 
 
 def test_lookat_maps_eye_to_origin():
@@ -74,7 +74,7 @@ def test_untile_matches_inverse_perm():
     import numpy as np
     import jax.numpy as jnp
 
-    from vkrt_tpu.utils.camera import tile_perm, untile
+    from vkrt.utils.camera import tile_perm, untile
 
     rng = np.random.default_rng(0)
     for w, h in ((1280, 720), (96, 72), (64, 32), (1280, 16), (160, 120)):
@@ -90,7 +90,7 @@ def test_retile_matches_perm():
     import numpy as np
     import jax.numpy as jnp
 
-    from vkrt_tpu.utils.camera import retile, tile_perm, untile
+    from vkrt.utils.camera import retile, tile_perm, untile
 
     rng = np.random.default_rng(1)
     for w, h in ((1280, 720), (96, 72), (64, 32), (160, 120)):

@@ -1,23 +1,22 @@
 """GLTF parsing + scene build tests against the in-repo Cornell asset
 (SURVEY.md §4: 13 nodes / 9 meshes / 9 materials / 1 point light)."""
 
-import os
-
 import numpy as np
 import pytest
 
-from vkrt_tpu.scene import (
+from vkrt.scene import (
     FALLBACK_LIGHTS,
     build_scene,
+    find_reference_cornell,
     make_cornell_box,
     make_random_soup,
     srgb_to_linear,
 )
-from vkrt_tpu.utils import gltf as gltf_mod
+from vkrt.utils import gltf as gltf_mod
 
-CORNELL = "/root/reference/media/scenes/cornell.gltf"
+CORNELL = find_reference_cornell()
 needs_cornell = pytest.mark.skipif(
-    not os.path.exists(CORNELL), reason="reference cornell.gltf not available"
+    CORNELL is None, reason="the reference's cornell.gltf is not in the checkout"
 )
 
 
@@ -96,7 +95,7 @@ def test_procedural_cornell_builds():
 
 
 def test_png_roundtrip(tmp_path):
-    from vkrt_tpu.utils.png import decode_png, encode_png
+    from vkrt.utils.png import decode_png, encode_png
 
     rng = np.random.default_rng(0)
     img = rng.integers(0, 255, (33, 47, 4), np.uint8)

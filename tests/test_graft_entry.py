@@ -28,7 +28,8 @@ def test_dryrun_multichip_subprocess():
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     out = subprocess.run(
         [sys.executable, "-c",
-         "from __graft_entry__ import dryrun_multichip; dryrun_multichip(8)"],
+         "from __graft_entry__ import dryrun_multichip; "
+         "dryrun_multichip(8, interpret_kernel=True)"],
         capture_output=True, text=True, timeout=600, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )

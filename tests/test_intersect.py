@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.ops.intersect import mt_block, pack_triangles, ray_aabb, safe_inv_dir
+from vkrt.ops.intersect import mt_block, pack_triangles, ray_aabb, safe_inv_dir
 
 
 def _tri():
@@ -107,3 +107,39 @@ def test_ray_aabb():
     assert bool(ray_aabb(o3, safe_inv_dir(d3), bmin, bmax, 1e-3, 1e4)[0])
     # tmax shorter than distance
     assert not bool(ray_aabb(o, safe_inv_dir(d), bmin, bmax, 1e-3, 1.0)[0])
+
+
+def test_lane_form_matches_block_form():
+    """mt_lanes / slab_lanes (the BVH walks' per-lane form) give the same
+    verdicts and the same t, u, v as the broadcast block form."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from vkrt.ops.intersect import mt_lanes, slab_lanes
+
+    rng = np.random.default_rng(3)
+    n = 512
+    o = jnp.asarray(rng.normal(size=(n, 3)) * 2, jnp.float32)
+    d = rng.normal(size=(n, 3))
+    d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True), jnp.float32)
+    v0 = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
+    e1 = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
+    e2 = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
+    comps = lambda x: tuple(x[:, k] for k in range(3))  # noqa: E731
+    hit, t, u, v = mt_lanes(comps(o), comps(d), comps(v0), comps(e1),
+                            comps(e2), 1e-3, 1e4)
+    blk = [mt_block(o[i:i + 1], d[i:i + 1], v0[i:i + 1], e1[i:i + 1],
+                    e2[i:i + 1], 1e-3, 1e4) for i in range(0, n, 37)]
+    for j, i in enumerate(range(0, n, 37)):
+        bh, bt, bu, bv = (np.asarray(x)[0, 0] for x in blk[j])
+        assert bool(hit[i]) == bool(bh)
+        if bh:
+            np.testing.assert_allclose([t[i], u[i], v[i]], [bt, bu, bv],
+                                       rtol=1e-6, atol=1e-7)
+    lo = jnp.minimum(v0, v0 + e1)
+    hi = jnp.maximum(v0, v0 + e1)
+    box = slab_lanes(comps(o), comps(safe_inv_dir(d)), comps(lo), comps(hi),
+                     1e-3, 1e4)
+    np.testing.assert_array_equal(
+        np.asarray(box), np.asarray(ray_aabb(o, safe_inv_dir(d), lo, hi,
+                                             1e-3, 1e4)))

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vkrt_tpu.ops.texture import build_mip_pyramid, sample_texture
-from vkrt_tpu.utils.obj import load_obj_scene, parse_obj
+from vkrt.ops.texture import build_mip_pyramid, sample_texture
+from vkrt.utils.obj import load_obj_scene, parse_obj
 
 OBJ = """
 mtllib test.mtl
@@ -115,11 +115,11 @@ def test_textured_scene_renders():
     """End-to-end: a textured quad lights up with the texture's color."""
     import jax.numpy as jnp
 
-    from vkrt_tpu.scene import build_scene
-    from vkrt_tpu.utils import gltf as gltf_mod
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.scene import build_scene
+    from vkrt.utils import gltf as gltf_mod
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils.camera import Camera
 
     # checkerboard texture
     img = np.zeros((8, 8, 4), np.uint8)
@@ -167,7 +167,7 @@ def test_textured_scene_renders():
 
 
 def test_mip_atlas_pack_and_lod_sampling():
-    from vkrt_tpu.ops.texture import pack_mip_atlas, sample_texture_lod
+    from vkrt.ops.texture import pack_mip_atlas, sample_texture_lod
 
     # 8x8 texture: level0 checker, coarser levels converge to gray
     img = np.zeros((8, 8, 4), np.uint8)
@@ -186,7 +186,7 @@ def test_mip_atlas_pack_and_lod_sampling():
     top = np.asarray(sample_texture_lod(*args, jnp.asarray([10.0])))
     np.testing.assert_allclose(top[0, :3], 0.5, atol=0.02)
     # level 0 equals the plain bilinear sampler
-    from vkrt_tpu.ops.texture import sample_texture
+    from vkrt.ops.texture import sample_texture
 
     lvl0 = np.asarray(sample_texture_lod(*args, jnp.asarray([0.0])))
     plain = np.asarray(sample_texture(
@@ -210,11 +210,11 @@ def test_gbuffer_uses_mips_for_distant_surfaces():
     G-buffer (gray), while a close-up view keeps the checker contrast."""
     import jax.numpy as jnp
 
-    from vkrt_tpu.scene import build_scene
-    from vkrt_tpu.utils import gltf as gltf_mod
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.scene import build_scene
+    from vkrt.utils import gltf as gltf_mod
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils.camera import Camera
 
     img = np.zeros((64, 64, 4), np.uint8)
     img[::2, ::2] = 255
@@ -260,7 +260,7 @@ def test_gbuffer_uses_mips_for_distant_surfaces():
 def test_aniso_matches_trilinear_when_isotropic():
     """Isotropic footprints degrade sample_texture_aniso to trilinear: on a
     texture linear in u, symmetric major-axis taps average to the center."""
-    from vkrt_tpu.ops.texture import (
+    from vkrt.ops.texture import (
         pack_mip_atlas, sample_texture_aniso, sample_texture_lod,
     )
 
@@ -286,7 +286,7 @@ def test_aniso_preserves_detail_across_minor_axis():
     """A grazing footprint (long in v, short in u) must keep u-contrast that
     isotropic filtering at the major-axis LOD destroys — the point of the
     reference's 4x anisotropic sampler (hello_vulkan.cpp:452-454)."""
-    from vkrt_tpu.ops.texture import (
+    from vkrt.ops.texture import (
         pack_mip_atlas, sample_texture_aniso, sample_texture_lod,
     )
 
@@ -320,7 +320,7 @@ def test_aniso_two_tap_quality():
     """The 2-tap fan (VKRT_ANISO_TAPS=2 / taps=2): must degrade to
     trilinear at isotropic footprints (taps collapse inside one texel) and
     stay within a quality bound of the 4-tap fan at anisotropic ones."""
-    from vkrt_tpu.ops.texture import (
+    from vkrt.ops.texture import (
         pack_mip_atlas, sample_texture_aniso, sample_texture_lod,
     )
 
@@ -357,7 +357,7 @@ def test_aniso_taps_env_validation():
     import importlib
     import os
 
-    import vkrt_tpu.ops.texture as tex
+    import vkrt.ops.texture as tex
 
     saved = os.environ.get("VKRT_ANISO_TAPS")
     try:
@@ -377,11 +377,11 @@ def test_gbuffer_aniso_grazing_plane():
     finite, detail-bearing texels through the aniso path."""
     import jax.numpy as jnp  # noqa: F401
 
-    from vkrt_tpu.scene import build_scene
-    from vkrt_tpu.utils import gltf as gltf_mod
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.scene import build_scene
+    from vkrt.utils import gltf as gltf_mod
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils.camera import Camera
 
     img = np.zeros((16, 16, 4), np.uint8)
     img[:, ::2] = [255, 255, 255, 255]

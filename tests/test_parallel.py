@@ -1,22 +1,22 @@
 """Multi-device sharded rendering on the 8-virtual-CPU-device mesh
-(the TPU analog of 'multi-node without a cluster', SURVEY.md §4)."""
+('multi-node without a cluster', SURVEY.md §4)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from vkrt_tpu.config import RenderSettings
-from vkrt_tpu.engine import Engine
-from vkrt_tpu.ops.trace import make_tracer
-from vkrt_tpu.parallel.mesh import factor_mesh, make_render_mesh
-from vkrt_tpu.parallel.render import (
+from vkrt.config import RenderSettings
+from vkrt.engine import Engine
+from vkrt.ops.trace import make_tracer
+from vkrt.parallel.mesh import factor_mesh, make_render_mesh
+from vkrt.parallel.render import (
     device_put_accum,
     make_sharded_pathtrace_step,
     render_sharded,
 )
-from vkrt_tpu.scene import make_cornell_box
-from vkrt_tpu.utils.camera import Camera
+from vkrt.scene import make_cornell_box
+from vkrt.utils.camera import Camera
 
 W, H = 64, 32
 
@@ -103,7 +103,7 @@ def test_factor_mesh():
 
 @needs_8dev
 def test_sharded_hybrid_matches_single_device(box):
-    from vkrt_tpu.parallel.render import make_sharded_hybrid_step
+    from vkrt.parallel.render import make_sharded_hybrid_step
 
     tracer = make_tracer(box, "bruteforce")
     cam = Camera().matrices(W, H)
@@ -137,8 +137,8 @@ def test_sharded_hybrid_matches_single_device(box):
 @needs_8dev
 def test_app_mesh_cli(tmp_path):
     """The --mesh CLI path end to end: argument plumbing + sharded render +
-    PNG output (VERDICT round-1 item 5: parallel/ reachable from app.py)."""
-    from vkrt_tpu.app import main
+    PNG output."""
+    from vkrt.app import main
 
     out = str(tmp_path / "mesh.png")
     # spp must be divisible by the spp mesh axis: friendly error, not a trace
@@ -153,7 +153,7 @@ def test_app_mesh_cli(tmp_path):
     ])
     assert rc == 0
     import numpy as np
-    from vkrt_tpu.utils.png import decode_png
+    from vkrt.utils.png import decode_png
 
     img = decode_png(open(out, "rb").read())
     assert img.shape[:2] == (48, 64)
@@ -161,14 +161,15 @@ def test_app_mesh_cli(tmp_path):
 
 
 @needs_8dev
-def test_sharded_pathtrace_with_pallas_tracer(box):
-    """The PRODUCTION tracer (Pallas kernels, interpret mode on CPU) under
-    shard_map — catches shard_map x pallas_call interaction bugs the
-    bruteforce-backed tests cannot (VERDICT round-1 weak item 5)."""
-    from vkrt_tpu.ops.pallas.trace import make_pallas_tracer
+def test_sharded_pathtrace_with_kernel_tracer(box):
+    """The GPU path's tracer (the Pallas traversal kernel, interpret mode on
+    CPU) under shard_map — catches shard_map x pallas_call interaction bugs
+    the bruteforce-backed tests cannot."""
+    from vkrt.ops.trace import build_tracer
 
     w, h = 32, 16  # tiny: interpret mode is slow
-    tracer = make_pallas_tracer(box, interpret=True)
+    tracer = build_tracer(box.tri_v0, box.tri_e1, box.tri_e2, "kernel",
+                          interpret=True)
     cam = Camera().matrices(w, h)
     mesh = make_render_mesh(n_tile=4, n_spp=2)
     step, inv = make_sharded_pathtrace_step(
@@ -187,16 +188,15 @@ def test_sharded_pathtrace_with_pallas_tracer(box):
     accum1, _ = step1(cam, 0, device_put_accum(mesh1, w, h),
                       jnp.ones(4, jnp.float32))
     accum1 = jnp.take(accum1, inv1, axis=0)
-    from vkrt_tpu.models.pathtracer import pathtrace_frame
+    from vkrt.models.pathtracer import pathtrace_frame
 
     ref, _ = pathtrace_frame(
         box, tracer, cam, 0, jnp.zeros((w * h, 3), jnp.float32),
         jnp.ones(4, jnp.float32), width=w, height=h, samples=1, depth=2,
     )
-    # sharding regroups rays into different kernel blocks, so the block-
-    # dominant octant (and with it the near-to-far visit order) can differ:
-    # rays hitting exactly-coplanar triangle seams may tie-break to the other
-    # face. Allow isolated seam pixels; everything else must match exactly.
+    # each lane walks the same tree in the same order whatever block it
+    # lands in; allow isolated seam pixels (float reassociation between the
+    # two compiled programs), everything else must match exactly.
     a, b = np.asarray(accum1), np.asarray(ref)
     mismatched = np.any(np.abs(a - b) > 1e-5 + 1e-5 * np.abs(b), axis=-1)
     assert mismatched.mean() < 0.01, (
@@ -208,13 +208,13 @@ def test_sharded_pathtrace_with_pallas_tracer(box):
 def test_denoise_tile_equals_full():
     """The tile-sharded temporal denoiser (ppermute halos + all-gathered
     reprojection history) is per-pixel equal to the full-frame filter
-    (VERDICT round-2 missing item 3), on history that reprojects ACROSS
+   , on history that reprojects ACROSS
     band boundaries."""
     from jax.sharding import NamedSharding, PartitionSpec as P
     from jax import shard_map
 
-    from vkrt_tpu.models import denoiser as dn
-    from vkrt_tpu.ops import nrd
+    from vkrt.models import denoiser as dn
+    from vkrt.ops import nrd
 
     w, h = 32, 32  # 4 bands of 8 rows = exactly the 2^3 tap reach
     n = w * h
@@ -299,8 +299,8 @@ def test_sharded_hybrid_denoised_matches_single_device(box):
     mesh: per-pixel equal to the single-device engine across frames."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vkrt_tpu.models.denoiser import DenoiserState, init_state
-    from vkrt_tpu.parallel.render import make_sharded_hybrid_step
+    from vkrt.models.denoiser import DenoiserState, init_state
+    from vkrt.parallel.render import make_sharded_hybrid_step
 
     tracer = make_tracer(box, "bruteforce")
     cam = Camera().matrices(W, H)
@@ -408,7 +408,7 @@ def test_sharded_corr_hybrid_smoke(box):
     same exposure range as the corr-less sharded hybrid."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vkrt_tpu.parallel.render import make_sharded_hybrid_step
+    from vkrt.parallel.render import make_sharded_hybrid_step
 
     tracer = make_tracer(box, "bruteforce")
     cam = Camera().matrices(W, H)

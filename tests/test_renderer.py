@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vkrt_tpu.config import RenderSettings
-from vkrt_tpu.engine import Engine
-from vkrt_tpu.models.pathtracer import accumulate
-from vkrt_tpu.scene import make_cornell_box
+from vkrt.config import RenderSettings
+from vkrt.engine import Engine
+from vkrt.models.pathtracer import accumulate
+from vkrt.scene import make_cornell_box
 
 W, H = 64, 48
 
@@ -76,7 +76,7 @@ def test_progressive_accumulation_reduces_variance(box):
 
 
 def test_camera_change_resets_accumulation(box):
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.utils.camera import Camera
 
     e = Engine(box, W, H, RenderSettings(rt_mode=1))
     e.render_frame()

@@ -4,8 +4,8 @@ vs cosine/GGX pdfs, RNG statistics)."""
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.ops import rng as rng_ops
-from vkrt_tpu.ops import sampling
+from vkrt.ops import rng as rng_ops
+from vkrt.ops import sampling
 
 
 def _tea_reference(v0, v1):

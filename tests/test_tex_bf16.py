@@ -11,7 +11,7 @@ value, before lighting).
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.utils import gltf as gltf_mod
+from vkrt.utils import gltf as gltf_mod
 
 
 def _textured_doc():
@@ -49,8 +49,8 @@ def _textured_doc():
 
 
 def test_bf16_atlas_dtype_and_sample_parity(monkeypatch):
-    from vkrt_tpu.scene import build_scene
-    from vkrt_tpu.ops.texture import sample_texture, sample_texture_lod
+    from vkrt.scene import build_scene
+    from vkrt.ops.texture import sample_texture, sample_texture_lod
 
     doc = _textured_doc()
     monkeypatch.setenv("VKRT_TEX_BF16", "0")  # f32 leg (bf16 is the default)
@@ -84,10 +84,10 @@ def test_bf16_atlas_dtype_and_sample_parity(monkeypatch):
 def test_bf16_atlas_render_parity(monkeypatch):
     """End-to-end hybrid render: bf16 vs f32 image error bounded by texel
     quantization through the (linear) lighting chain."""
-    from vkrt_tpu.scene import build_scene
-    from vkrt_tpu.config import RenderSettings
-    from vkrt_tpu.engine import Engine
-    from vkrt_tpu.utils.camera import Camera
+    from vkrt.scene import build_scene
+    from vkrt.config import RenderSettings
+    from vkrt.engine import Engine
+    from vkrt.utils.camera import Camera
 
     doc = _textured_doc()
     monkeypatch.setenv("VKRT_TEX_BF16", "0")  # f32 leg (bf16 is the default)

@@ -1,4 +1,4 @@
-"""End-to-end textured-asset golden (VERDICT round-1 missing item 4).
+"""End-to-end textured-asset golden.
 
 Builds a REAL binary .glb in-test — embedded PNG baseColor + normal-map
 images, TANGENT attributes, KHR_lights_punctual — and drives the full
@@ -16,12 +16,12 @@ import struct
 import numpy as np
 import jax.numpy as jnp
 
-from vkrt_tpu.utils.gltf import parse_gltf
-from vkrt_tpu.utils.png import encode_png
-from vkrt_tpu.scene import build_scene
-from vkrt_tpu.config import RenderSettings
-from vkrt_tpu.engine import Engine
-from vkrt_tpu.utils.camera import Camera
+from vkrt.utils.gltf import parse_gltf
+from vkrt.utils.png import encode_png
+from vkrt.scene import build_scene
+from vkrt.config import RenderSettings
+from vkrt.engine import Engine
+from vkrt.utils.camera import Camera
 
 
 def _checker_png(n=16):
